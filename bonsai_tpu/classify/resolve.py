@@ -7,9 +7,8 @@ weight of taxon t over the hit multiset Q is a pairwise ancestor test:
     score(t) = #{q in Q : tin[q] <= tin[t] <= tout[q]}
 
 evaluated as a dense (P, P) comparison matrix per read — at P ~ 100-300
-hit positions that is ~1e8 boolean VPU ops per large batch, fuses into a
-handful of elementwise kernels, and avoids data-dependent sorts entirely
-(a sort/searchsorted formulation compiled 10x slower on TPU).
+hit positions that is ~1e8 boolean ops per large batch, fuses into a
+handful of elementwise kernels, and avoids data-dependent sorts entirely.
 
 Tie resolution (max-score set -> LCA of the set) uses the preorder-interval
 fact LCA(S) = LCA(argmin tin, argmax tin), computed by vectorized binary

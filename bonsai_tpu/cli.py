@@ -38,8 +38,8 @@ def _add_classify(sub):
                         "default); psum = range-sharded merge")
     p.add_argument("--distributed", action="store_true",
                    help="join the multi-host runtime first "
-                        "(JAX_COORDINATOR_ADDRESS/JAX_NUM_PROCESSES/"
-                        "JAX_PROCESS_ID or TPU-pod autodetection)")
+                        "(set JAX_COORDINATOR_ADDRESS/JAX_NUM_PROCESSES/"
+                        "JAX_PROCESS_ID)")
     p.add_argument("--profile", action="store_true",
                    help="print per-stage wall times (parse/dispatch/"
                         "materialize/format) to stderr")
@@ -70,11 +70,11 @@ def _add_build(sub, name, aliases):
                         "(db/build_device.py sort-based pipeline)")
     p.add_argument("--shards", default="0", metavar="N|auto",
                    help="write OUT_PATH as a DIRECTORY of N hash-prefix "
-                        "shard files + manifest (each pod host loads only "
+                        "shard files + manifest (each host loads only "
                         "its 'db'-rank shards; partition matches the "
                         "all_to_all routed probe).  'auto' picks the "
                         "smallest count keeping each rank's slot array "
-                        "inside the measured flat-gather budget "
+                        "inside the measured per-device budget "
                         "(db/formats.py recommended_shards)")
     return p
 

@@ -2,8 +2,8 @@
 
 Reverse-complement and canonicalization follow the Jellyfish/Kraken
 bit-parallel recipe (reference: /root/reference/include/bonsai/kmerutil.h:83-146)
-applied to whole uint64 lanes, which XLA lowers to paired 32-bit VPU ops on
-TPU.  All functions accept either numpy or jax.numpy arrays (the array
+applied to whole uint64 lanes, which XLA lowers to paired 32-bit integer ops
+on a GPU.  All functions accept either numpy or jax.numpy arrays (the array
 namespace is inferred from the input).
 """
 

@@ -1,10 +1,10 @@
 """Batched k-mer packing: byte codes -> packed uint64 k-mers.
 
-TPU-first design of the reference Encoder's inner loops
+Vectorized design of the reference Encoder's inner loops
 (/root/reference/include/bonsai/encoder.h:241-346,547-592): instead of a
 rolling scalar loop, a batch of sequences is encoded with k *static* shifted
 slices folded with shift-or (power-of-two radixes) or multiply-add (protein
-radixes).  No gathers, no scans: XLA fuses the fold into a handful of VPU ops
+radixes).  No gathers, no scans: XLA fuses the fold into a handful of vector ops
 per position.  Ambiguous characters (code -1) are tracked with an OR-fold
 validity mask; the reference's "restart on N" semantics fall out as
 "windows containing an N are invalid".
@@ -66,7 +66,7 @@ def pack_spaced_kmers(codes, offsets, it: InputType = InputType.DNA):
 def _pack_contig_fast(codes, k, bits, xp):
     """Contiguous pack by logarithmic doubling: O(log k) shift-or steps
     (mostly in native u32 lanes) instead of k sequential u64 folds — the
-    hot-path formulation for TPU (the scalar rolling loop of
+    hot-path formulation on the device (the scalar rolling loop of
     encoder.h:241-272 has no carried state here at all)."""
     L = codes.shape[-1]
     P = L - k + 1

@@ -2,7 +2,7 @@
 
 Counterpart of the reference's u128 Encoder instantiation
 (encoder.h:113 with KmerT=u128; exercised by test/encoding.cpp:152-238).
-TPU int lanes are 32/64-bit, so a 2k-bit kmer for k > 32 is represented as
+Device int lanes are 32/64-bit, so a 2k-bit kmer for k > 32 is represented as
 two u64 lanes (hi = bases beyond the low 32).  Canonicalization mirrors
 kmerutil.h:83-146's bit-parallel reverse complement, applied lane-wise
 with a cross-lane shift stitch."""

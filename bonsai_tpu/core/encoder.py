@@ -1,6 +1,6 @@
 """Batched encoder facade: reference-equivalent k-mer/minimizer streams.
 
-This is the TPU-native counterpart of ``Encoder<ScoreType, KmerT>::for_each``
+This is the vectorized counterpart of ``Encoder<ScoreType, KmerT>::for_each``
 (/root/reference/include/bonsai/encoder.h:113-638).  Where the reference
 walks one sequence with a scalar rolling loop and a btree window, this class
 maps a whole (B, L) batch of code arrays to an emission matrix in one traced

@@ -81,11 +81,21 @@ def spaced_code_counts(codes, positions, n_codes: int):
 
 def entropy_value(counts, k: int):
     """H = sum_c p ln p with p = cnt/k (entropy.h:44-48; natural log,
-    non-positive)."""
+    non-positive).
+
+    p ln p takes only k+1 values, so they come from a float64 table that
+    numpy computes on the host, and the terms are added one code at a time
+    in code order (the reference's loop order).  A device's own ``log``
+    need not round like the host's, and one ulp in H flips minimizer
+    choices; with the table the scores are the same on every backend."""
     xp = _xp(counts)
-    p = counts.astype(xp.float64) / float(k)
-    term = xp.where(counts > 0, p * xp.log(xp.where(counts > 0, p, 1.0)), 0.0)
-    return term.sum(axis=-1)
+    p = np.arange(k + 1, dtype=np.float64) / float(k)
+    table = p * np.log(np.where(p > 0, p, 1.0))
+    terms = xp.asarray(table)[counts]
+    H = terms[..., 0]
+    for c in range(1, counts.shape[-1]):
+        H = H + terms[..., c]
+    return H
 
 
 def entropy_scores(kmers, H, eps: float):

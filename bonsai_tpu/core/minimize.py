@@ -3,7 +3,7 @@
 The reference keeps a btree-multiset sliding window per sequence
 (QueueMap, /root/reference/include/bonsai/qmap.h:63-97) and emits, for every
 full window of W = w - c + 1 seeds, the seed minimizing (score, kmer)
-lexicographically.  On TPU that dissolves into a sparse-table sliding
+lexicographically.  On the device that dissolves into a sparse-table sliding
 minimum: log2(W) doubling steps plus one combine, fully vectorized over the
 batch — no trees, no queues.
 

@@ -1,6 +1,6 @@
 """Database construction pipelines.
 
-TPU-native re-design of the reference build farm
+Vectorized re-design of the reference build farm
 (/root/reference/include/bonsai/feature_min.h:93-281): where the reference
 runs an async thread farm of per-genome khash fills folded into a global map
 under CAS, here each genome streams through the batched device encoder into

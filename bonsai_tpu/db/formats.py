@@ -137,7 +137,7 @@ def load_database(path: str) -> Database:
 @dataclass
 class ProbeImage:
     """A classify-ready slot image: exactly what the classifier uploads,
-    memory-mappable from disk.  The TPU analog of the reference's khash
+    memory-mappable from disk.  The device analog of the reference's khash
     memory-image load (util.h:281-372, database.h:33-56): where the
     reference fread()s the live hash table bytes and probes them as-is,
     this stores the quotient-cuckoo slot words ALREADY packed with the
@@ -219,11 +219,13 @@ def load_probe_image(dirpath: str) -> ProbeImage:
 
 # -- sharded on-disk layout ---------------------------------------------------
 
-# Measured single-chip gather cliff (PERF.md "Measured gather costs" +
-# tools/scale_bench.py probe sweep): probe row-gathers are flat in table
-# size up to ~128 MB of slot footprint and several-fold slower beyond, so
-# shard placement keeps each rank's slot array under this budget.
-SHARD_SLOT_BUDGET = 128 << 20
+# Per-device slot budget, from the probe-cost sweep of tools/scale_bench.py
+# (`probe`) on an NVIDIA H100 80GB HBM3 at its 700 W power limit: 8192x74
+# classify-shaped probes (~80% hits) cost 0.51, 0.61 and 0.58 ns/probe at
+# 10M, 40M and 160M keys (134 MB, 537 MB and 2.1 GB of slots; L2 is 50 MB).
+# There is no step beyond the L2 boundary up to the largest size measured,
+# so the budget is that size: shard only tables whose slots exceed 2 GiB.
+SHARD_SLOT_BUDGET = 2 << 30
 
 
 def table_slot_bytes(n_kmers: int) -> int:
@@ -239,8 +241,8 @@ def table_slot_bytes(n_kmers: int) -> int:
 def recommended_shards(n_kmers: int,
                        budget_bytes: int = SHARD_SLOT_BUDGET) -> int:
     """Smallest shard count keeping every rank's slot array within the
-    measured flat-gather budget (the automatic placement policy for
-    `build --shards auto` and pod deployments)."""
+    measured per-device budget (the automatic placement policy for
+    `build --shards auto` and multi-device deployments)."""
     s = 1
     while table_slot_bytes(-(-n_kmers // s)) > budget_bytes and s < 65536:
         s *= 2
@@ -252,7 +254,7 @@ def save_database_sharded(db: Database, dirpath: str, ndb: int,
     checkpoint/persistence: 'flat arrays in a sharded on-disk layout').
 
     The partition is the HASH-PREFIX ownership used by the all_to_all
-    routed probe (db/table.py shard_owner), so a pod host serving 'db'
+    routed probe (db/table.py shard_owner), so a host serving 'db'
     rank s loads exactly shard-s.btpu and nothing else — DB load I/O
     scales with 1/ndb per host.
 
@@ -390,7 +392,7 @@ def save_sharded_arrays(keys: np.ndarray, vals: np.ndarray, dirpath: str,
 def load_database_sharded(dirpath: str,
                           ranks: Optional[List[int]] = None) -> Database:
     """Load a sharded DB directory (all shards, or only `ranks` — the
-    per-host subset on a pod).  Shard key ranges interleave, so the
+    per-host subset of a multi-host run).  Shard key ranges interleave, so the
     merged keys are re-sorted (cheap: concatenation of sorted runs)."""
     import os
 

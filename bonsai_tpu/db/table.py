@@ -1,14 +1,13 @@
-"""Quotient cuckoo k-mer table: HBM-resident, gather-probed.
+"""Quotient cuckoo k-mer table: device-memory-resident, gather-probed.
 
-TPU-native replacement for the khash classify DB
+Vectorized replacement for the khash classify DB
 (/root/reference/klib khash via include/bonsai/util.h:159-163).  khash's
 scalar quadratic probing has unbounded, data-dependent probe chains —
 poison for a vectorized probe that must execute its worst case for every
 lane.  Here a probe is exactly TWO 32-byte row gathers plus one
-small-table value gather, with the layout chosen from on-chip gather
-microbenchmarks (tools/gather_curve.py): row-gather cost is flat
-(~10 ns) for tables up to ~128 MB and ~3x worse beyond, so the design
-minimizes the gathered table's bytes:
+small-table value gather, and the layout minimizes the gathered table's
+bytes (random row gathers are the probe's cost; whether the 32-byte row
+fits the GPU's access granularity best is an open question, ROADMAP S3):
 
 * keys are stored as the QUOTIENT of an invertible hash — zero
   information loss, no false positives:
@@ -28,7 +27,7 @@ minimizes the gathered table's bytes:
 
 * values live OUT of the hot rows: when the DB has few distinct values
   (the common case — LCA taxids), val_idx indexes a small unique-values
-  array (tiny-table gathers are ~8.5 ns flat); otherwise a parallel
+  array (a tiny table stays cache-resident); otherwise a parallel
   slot-indexed u64 array is used and the value is one element gather at
   the matched slot.
 
@@ -233,9 +232,9 @@ class KmerTable:
         (_ensure_layout), so all APIs keep working — this only trades a
         one-time rebuild for classify-time memory.  The classifier calls
         it after uploading its device arrays: these intermediates were
-        ~40% of the sustained-stream RSS high-water (VERDICT r4 weak #2;
-        the reference's khash image keeps nothing beyond the live table
-        either, util.h:281-372)."""
+        ~40% of the sustained-stream RSS high-water (the reference's
+        khash image keeps nothing beyond the live table either,
+        util.h:281-372)."""
         self._h = None
         self.owner = None
         self.choice = None

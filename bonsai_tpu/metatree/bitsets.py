@@ -4,7 +4,7 @@ Equivalents of kgset_t (/root/reference/include/bonsai/kgset.h:48-124),
 bitmap_t / AdjacencyList / score_node_addn (bitmap.h:8-150), and veccmp
 (bitcmp.h:18-65).
 
-TPU-native design: the khash-set-per-genome + per-kmer bitvector hashmap
+Vectorized design: the khash-set-per-genome + per-kmer bitvector hashmap
 becomes
   * per-taxon sorted unique kmer arrays (device encode + sort),
   * one merged (kmer, taxon) sort -> a packed-u64 bit matrix

@@ -1,6 +1,6 @@
 // Native FASTA/FASTQ batch reader + 2-bit encoder.
 //
-// TPU-native replacement for the reference's kseq/bseq input layer
+// Batch-oriented replacement for the reference's kseq/bseq input layer
 // (reference klib kseq.h + include/bonsai/kseq_declare.h:39-204): the
 // device consumes fixed-shape (B, L) int8 code batches, so the host
 // parser's job is to stream records and marshal them straight into padded

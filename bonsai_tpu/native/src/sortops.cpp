@@ -1,7 +1,7 @@
 // Host-side sort primitives for the DB-build pipeline.
 //
 // The reference builds its khash map through pointer-chasing inserts; the
-// TPU rebuild's deterministic sort-and-fold formulation (db/build.py) is
+// rebuild's deterministic sort-and-fold formulation (db/build.py) is
 // bottlenecked by numpy's comparison sorts instead.  These LSD radix
 // routines (16-bit digits, skip-constant-digit passes) replace
 // np.argsort / np.unique on the 10-50M-element u64 k-mer streams.

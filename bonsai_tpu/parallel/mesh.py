@@ -2,7 +2,7 @@
 
 The reference's parallelism is a single-node thread pool
 (klib kthread work stealing, /root/reference/klib/kthread.c:71-174).  The
-TPU-native equivalents (SURVEY §2.10):
+device-mesh equivalents (SURVEY §2.10):
 
   axis 'dp' — data parallelism over reads (replaces the read-slice pool)
   axis 'db' — database sharding: each rank owns a contiguous range of
@@ -11,9 +11,11 @@ TPU-native equivalents (SURVEY §2.10):
   axis 'sp' — sequence parallelism for multi-Mb contigs in DB build, with
               ppermute halo exchange (replaces streaming rolling state)
 
-All collectives ride ICI within a host and DCN across hosts via standard
-jax.lax primitives under shard_map; multi-host launches use
-jax.distributed.initialize() (see cli/dist docs).
+All collectives are standard jax.lax primitives under shard_map, which XLA
+hands to NCCL on GPUs (NVLink within a host, the network across hosts).
+Every device reaches every other at the same rate, so mesh axes follow the
+algorithm alone, in jax.devices() order.  Multi-host launches use
+jax.distributed.initialize() (see init_distributed).
 """
 
 from __future__ import annotations
@@ -29,12 +31,11 @@ def init_distributed(
     process_id: Optional[int] = None,
 ) -> int:
     """Join the multi-host runtime (the reference has no cross-node story;
-    this is the TPU-pod growth path, SURVEY §2.10 'distributed backend').
+    this is the multi-host growth path, SURVEY §2.10 'distributed backend').
 
-    On Cloud TPU pods all three arguments are auto-detected from the
-    metadata server, so ``init_distributed()`` alone suffices; elsewhere
-    pass coordinator \"host:port\", the process count, and this process's
-    id (or set JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES / JAX_PROCESS_ID).
+    Pass the coordinator \"host:port\", the process count and this
+    process's id, or set JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES /
+    JAX_PROCESS_ID; nothing is auto-detected on a plain GPU cluster.
     Returns this process's id.  Safe to call twice (second call no-ops).
     """
     import os

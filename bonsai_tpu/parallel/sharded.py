@@ -533,8 +533,8 @@ class ShardedClassifier:
     def gather_rows_per_step(self, n_reads: int, read_len: int,
                              rounds: int = 1) -> int:
         """Analytic per-CHIP slot-row gather count for one step over a
-        batch of n_reads reads of read_len bases (the probe's dominant
-        cost, PERF.md).  In a2a mode this is flat in ndb — the design
+        batch of n_reads reads of read_len bases (the probe's memory
+        traffic).  In a2a mode this is flat in ndb — the design
         property the psum route lacks (its per-chip volume grows ndb-fold
         at fixed chip count)."""
         P = max(read_len - self.sp.c + 1, 0)
@@ -551,7 +551,7 @@ class ShardedClassifier:
                          capacity_factor: Optional[float] = None,
                          emit_all: bool = False, emit_kraken: bool = True,
                          emit_fastq: bool = False):
-        """Pod-scale constructor: each PROCESS loads only the shard files
+        """Multi-host constructor: each PROCESS loads only the shard files
         of its addressable 'db' ranks from a `build --shards N` directory
         (db/formats.py save_database_sharded) — DB load I/O and host RAM
         scale with 1/ndb per host.  The on-disk partition is the same
@@ -661,7 +661,7 @@ class ShardedClassifier:
         # per-rank memory images (bake_rank_images): when a matching
         # image dir exists, each rank mmaps its classify-ready slot
         # words instead of re-sorting + re-placing its shard group —
-        # the pod analog of the single-chip probe image
+        # the per-rank analog of the single-device probe image
         # (util.h:281-372); stale geometry (different nb / dictionary
         # mode) is ignored
         from ..db import formats as _formats
@@ -747,7 +747,7 @@ class ShardedClassifier:
         # prefetch THIS process's ranks in a small thread pool: the heavy
         # parts (file read, radix sort, cuckoo walk) release the GIL, so
         # a dev host addressing many ranks loads them concurrently (on a
-        # real pod each host owns only its own 1-2 ranks)
+        # real multi-host run each host owns only its own ranks)
         my_ranks = sorted({
             int(idx[0].start or 0)
             for idx in shard_db.addressable_devices_indices_map(
@@ -993,7 +993,7 @@ class ShardedClassifier:
     # -- multi-host per-rank I/O ------------------------------------------
     def process_dataset_distributed(self, path, out_dir: str,
                                     mate_path=None, batch_size: int = 4096):
-        """Pod-scale classify with PER-PROCESS output: every process
+        """Multi-host classify with PER-PROCESS output: every process
         dispatches the same sequence of global steps (the a2a/psum
         collectives span the whole mesh), but each process fetches,
         formats, and writes ONLY the result rows held by its own devices
@@ -1101,8 +1101,8 @@ def bake_rank_images(dirpath: str, tree, db_ranks: int = 0) -> str:
     shard file), pre-compute the encoded slot words
     from_sharded_dir would build and save them mmap-loadable under
     ``dirpath/rankimg-db{N}-{tree_digest}/``.  Ranks then load by mmap +
-    upload with no sort/placement/encode work — the pod analog of the
-    single-chip probe image (util.h:281-372).  Geometry (group size,
+    upload with no sort/placement/encode work — the per-rank analog of the
+    single-device probe image (util.h:281-372).  Geometry (group size,
     common bucket count, dictionary mode) mirrors from_sharded_dir
     exactly; a loader with different geometry ignores stale images."""
     import json as _json

@@ -4,7 +4,7 @@ Equivalent of setcmp.h (intersection_size / jaccard_index / union_size over
 khash sets, /root/reference/include/bonsai/setcmp.h:10-34) and the cmpshs
 tool (pairwise comparison of .shs dumps, /root/reference/bin/cmpshs.cpp).
 khash membership loops become sorted-array intersections (searchsorted) —
-the TPU/vector-native formulation."""
+the vector-native formulation."""
 
 from __future__ import annotations
 

@@ -12,7 +12,7 @@ Byte layouts match the reference exactly; key ORDER in .bin differs (we
 write sorted keys, the reference writes khash iteration order — content,
 not order, is the contract; .shs is sorted in both).
 
-The counting itself is TPU-idiomatic: the khash insert/increment loop is
+The counting itself is vectorized: the khash insert/increment loop is
 replaced by sort + segment-count over the batched hash stream.
 """
 

@@ -1,4 +1,4 @@
-"""TaxTree: TPU-native taxonomy representation.
+"""TaxTree: device-friendly taxonomy representation.
 
 The reference walks khash parent pointers per query (lca util.h:634-663,
 node_depth util.h:679-691, resolve_tree util.h:831-869).  Here the taxonomy

@@ -3,7 +3,7 @@
 A deliberately slow, line-by-line faithful Python port of the dispatch and
 inner loops of /root/reference/include/bonsai/encoder.h (for_each family,
 qmap.h QueueMap, kmerutil.h canonicalization), used to property-test the
-batched TPU encoder.  Not used by the framework itself.
+batched device encoder.  Not used by the framework itself.
 """
 
 from __future__ import annotations

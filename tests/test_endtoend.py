@@ -633,7 +633,7 @@ def test_slow_writer_backpressure(db, tree, tmp_path):
     depth-bounded, so the number of batches prepared but not yet
     written stays <= 2*depth + the 3 in-hand batches (one per stage
     thread).  This is the behavioral form of the sustained-stream RSS
-    bound (VERDICT r4 weak #2; classifier.h:321 flushes per-chunk for
+    bound (classifier.h:321 flushes per-chunk for
     the same reason)."""
     import io
     import threading

@@ -12,7 +12,7 @@ the full sets" claim, now a committed regression) — which also pins the
 BASELINE "taxid exact-match %" metric at 100%.  The ec.k12 set
 additionally gets a ground-truth accuracy readout (every read is drawn
 from the K-12 genome, taxid 11, genus 2) — the offline accuracy_eval
-number (VERDICT r2 #5).
+number.
 """
 
 import gzip

@@ -225,7 +225,7 @@ def test_sharded_classify_batch_and_dataset(tmp_path, ec_db_tree=None):
 
 
 def test_from_sharded_dir_matches_single(setup, tmp_path):
-    """Pod-style lazy shard loading: a ShardedClassifier built from a
+    """Multi-host-style lazy shard loading: a ShardedClassifier built from a
     `build --shards N` directory (per-rank shard files, flat value
     arrays, geometry agreed via the manifest) matches the single-device
     classifier exactly."""

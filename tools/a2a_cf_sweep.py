@@ -1,6 +1,6 @@
 #!/usr/bin/env python
-"""a2a capacity-factor study (VERDICT r3 weak #3): pick the default cf
-from data instead of a guess.
+"""a2a capacity-factor study: pick the default cf from data instead of a
+guess.
 
 The routed probe sends, per round, at most cap = ceil(Q_local/ndb * cf)
 queries to each owner; a (source device, owner) bucket with more than cap
@@ -10,10 +10,10 @@ function of the query stream and the mesh shape:
     rounds = max over (src, owner) of ceil(count[src, owner] / cap)
 
 so it can be computed exactly on the host for real read sets — no mesh
-required.  Per-round device cost is dominated by the owner-side probe of
-ndb*cap rows (2 row-gathers each, ~10 ns flat — PERF.md) plus the
-bucketize sort of Q_local, so expected step time ~ rounds * (sort(Q) +
-2*gather*ndb*cap); minimizing over cf gives the default.
+required.  Per-round device work is the owner-side probe of ndb*cap
+rows (2 row-gathers each) plus the bucketize sort of Q_local, so each
+configuration also reports the probe rows it pays, rounds * ndb * cap;
+the default is the smallest cf that needs one round on real data.
 
 Sweeps HiSeq batches (real data) and adversarial skew (all kmers to one
 owner) across mesh shapes; prints one JSON line per configuration.
@@ -30,20 +30,15 @@ import numpy as np
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
-GATHER_NS = 10.0  # per row gather (PERF.md, <=128MB tables)
-SORT_NS = 4.1  # per element (PERF.md)
-
-
 def rounds_needed(counts: np.ndarray, q_local: int, ndb: int,
                   cf: float) -> int:
     cap = max(int(np.ceil(q_local / ndb * cf)), 1)
     return int(np.ceil(counts.max() / cap)) if counts.size else 1
 
 
-def step_cost_ms(q_local: int, ndb: int, cf: float, rounds: int) -> float:
+def probe_rows(q_local: int, ndb: int, cf: float, rounds: int) -> int:
     cap = max(int(np.ceil(q_local / ndb * cf)), 1)
-    per_round = q_local * SORT_NS + 2 * GATHER_NS * ndb * cap
-    return rounds * per_round / 1e6
+    return rounds * ndb * cap
 
 
 def hiseq_kmers(batch_rows: int):
@@ -92,13 +87,10 @@ def main():
             row = dict(
                 metric="a2a_cf_hiseq", ndb=ndb, dp=dp,
                 worst_rounds={str(k): v for k, v in worst.items()},
-                est_ms={
-                    str(cf): round(
-                        step_cost_ms(
-                            -(-8192 // nranks) * batches[0][0].shape[1],
-                            ndb, cf, r,
-                        ),
-                        3,
+                probe_rows={
+                    str(cf): probe_rows(
+                        -(-8192 // nranks) * batches[0][0].shape[1],
+                        ndb, cf, r,
                     )
                     for cf, r in worst.items()
                 },

@@ -139,7 +139,7 @@ def main():
                 anc += 1  # one is an ancestor of the other
             else:
                 wrong += 1
-    # the two headline tiers (VERDICT r4 #7): exact-taxid and
+    # the two headline tiers: exact-taxid and
     # clade-compatible (exact + ancestor) vs the SHIPPED class files.
     # NOTE the reference's number is anchored on a RefSeq DB of the 10
     # mock-community organisms; a DB without them (the zero-egress

@@ -1,7 +1,7 @@
 #!/usr/bin/env python
-"""Measure device (TPU) vs host DB build on the ec 5-genome corpus.
+"""Measure device vs host DB build on the ec 5-genome corpus.
 
-Runs each build twice in-process: the first device run pays remote compiles
+Runs each build twice in-process: the first device run pays compiles
 (one per distinct merge-shape), the second is the steady-state number.
 Content equality is asserted against the host build every time.
 

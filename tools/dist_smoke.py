@@ -7,7 +7,7 @@ sharded classifier (all_to_all routed probe) runs one step whose output
 must equal the single-device classifier computed locally.  This executes
 the actual multi-host code path (init_distributed, cross-process
 make_array_from_callback, collectives over the distributed runtime) that
-dryrun_multichip's in-process mesh cannot reach (VERDICT r2 #6).
+dryrun_multichip's in-process mesh cannot reach.
 
 Run directly (spawns both workers):   python tools/dist_smoke.py
 Worker mode (used internally):        python tools/dist_smoke.py --worker I P ADDR
@@ -108,7 +108,7 @@ def worker(pid: int, nproc: int, addr: str) -> int:
         flush=True,
     )
 
-    # phase 2 — the pod DB-loading property: from a sharded on-disk DB,
+    # phase 2 — the multi-host DB-loading property: from a sharded on-disk DB,
     # THIS process must read only the shard files of its addressable
     # 'db' ranks (DB load I/O scales 1/ndb per host).  Both processes
     # write identical sharded dirs (deterministic build) privately.
@@ -127,8 +127,8 @@ def worker(pid: int, nproc: int, addr: str) -> int:
         return real_read(path)
 
     # db-MAJOR mesh: each process's devices sit in one 'db' row, so a
-    # host holds (and loads) exactly its own table shards — the pod
-    # deployment layout
+    # host holds (and loads) exactly its own table shards — the
+    # multi-host deployment layout
     mesh2 = make_mesh({"db": 2, "dp": 2})
     fmts.read_database_arrays = counting_read
     try:
@@ -162,7 +162,7 @@ def worker(pid: int, nproc: int, addr: str) -> int:
     # devices' rows; no host gather), merged back to the single-process
     # byte stream and diffed.  DIST_SMOKE_DIR is one shared directory
     # created by the launcher (both workers run on this machine — on a
-    # real pod each host writes to its own storage and the merge runs
+    # real cluster each host writes to its own storage and the merge runs
     # wherever all parts land).
     import io
     import time

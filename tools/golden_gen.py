@@ -214,8 +214,8 @@ def gen_kraken(manifest: dict) -> None:
     classification of HiSeq/MiSeq (10003 reads each,
     /root/reference/kraken_benchmarks/) and the regenerated ec.k12 read
     set — the round-2 'byte-identical on the full sets' claim becomes a
-    committed regression (VERDICT r2 #4), and taxid agreement % becomes
-    computable offline (VERDICT r2 #3/#5)."""
+    committed regression, and taxid agreement % becomes computable
+    offline."""
     kb = os.path.join(DATA, "kraken_benchmarks")
     ecdir = os.path.join(DATA, "ec")
     genomes = sorted(

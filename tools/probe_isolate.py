@@ -1,6 +1,6 @@
 #!/usr/bin/env python
-"""Why is the production probe 55ns/q when the microbench gather is 21.6?
-Isolate: table size, 2-D vs flat queries, bucket-hash cost."""
+"""Why does the production probe cost more per query than an isolated row
+gather?  Isolate: table size, 2-D vs flat queries, bucket-hash cost."""
 import os
 import sys
 import time

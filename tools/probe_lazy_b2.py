@@ -1,8 +1,8 @@
 #!/usr/bin/env python
 """Probe experiment: displacement-bit lazy b2 + cumsum compaction.
 
-VERDICT r2 #2: one more shot at the measured 1.76x single-chip ceiling
-(b1-only 7.0 vs dual-gather 12.4 ms/step).  Design under test:
+One more attempt at the single-gather ceiling (the b1-only step, an
+incorrect upper bound on the dual-gather step).  Design under test:
 
 * placement skew: after cuckoo placement, move every b2-resident key back
   to its b1 bucket whenever a slot is free (host post-pass), maximizing
@@ -21,7 +21,7 @@ VERDICT r2 #2: one more shot at the measured 1.76x single-chip ceiling
   gathers, one gather back.
 
 Measures, end-to-end in the real step shape (8192 x 101bp reads, ec k=31
-DB), interleaved + repeated per PERF.md discipline:
+DB), interleaved + repeated:
   v0: current dual-gather step
   v1: lazy-b2 at several CAP fractions
 and prints host-side placement stats (b1-resident %, displaced-bucket %,
@@ -315,7 +315,7 @@ def main():
         assert np.array_equal(got, ref), f"{name} diverges from v0"
     print("correctness: lazy-b2 == v0 on the bench batch", file=sys.stderr)
 
-    # interleave, 3 reps, report min (PERF.md discipline)
+    # interleave, 3 reps, report min
     results = {name: [] for name, *_ in variants}
     for rep in range(3):
         for name, fn, args, col in variants:

@@ -4,12 +4,12 @@
 Measures reads/s of ShardedClassifier at increasing mesh widths and
 reports scaling efficiency vs 1 device (the BASELINE north-star metric:
 >= 85% at 2+ hosts), plus the ANALYTIC per-chip row-gather volume — the
-probe's dominant cost (PERF.md) and therefore the honest scaling model
-for a gather-bound workload.  The a2a route's volume is flat in ndb;
+probe's memory traffic, and the scaling model for a gather-bound
+workload.  The a2a route's volume is flat in ndb;
 the psum route's grows ndb-fold, which is why a2a is the default for
 db-sharded meshes.
 
-On a real pod slice, run one process per host with jax.distributed
+On a multi-host cluster, run one process per host with jax.distributed
 (DIST=1); on a dev box, set
   JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8
 for a functional (not performance-meaningful) check.

@@ -1,6 +1,6 @@
 #!/usr/bin/env python
-"""Component-level profile of the classify step on the real chip, with the
-chained/fetch-synced harness (see calibrate_timing.py)."""
+"""Component-level profile of the classify step on the device, with a
+chained/fetch-synced harness."""
 import os
 import sys
 import time
